@@ -1,10 +1,12 @@
-"""dct_carver_tpu — a TPU-native seam-carving (content-aware retargeting)
-framework with the capabilities of avivrosenberg/dct-carver, rebuilt from
-scratch on JAX / pjit / Pallas.
+"""dct_carver_tpu — a seam-carving (content-aware retargeting) framework
+with the capabilities of avivrosenberg/dct-carver, rebuilt from scratch on
+JAX for NVIDIA GPUs (the package name records that it was first written for
+TPUs).
 
-Layer map (mirrors SURVEY.md §1, redesigned TPU-first):
+Layer map (mirrors SURVEY.md §1):
+  platform  — the one place that picks each stage's implementation
   ops/      — DCT energy + DP seam ops (pure JAX semantics anchor)
-  pallas/   — fused TPU kernels for the hot paths
+  pallas/   — the GPU seam-DP kernel (Pallas through Triton)
   models/   — the Carver lifecycle object + retargeting pipelines
   parallel/ — mesh/batch sharding and spatially-sharded single-image carving
   utils/    — config, image helpers, checkpointing, metrics

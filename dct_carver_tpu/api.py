@@ -132,7 +132,7 @@ def _carve_stack(images: np.ndarray, seams_number: int,
         blocksize=cfg.blocksize, edges=cfg.edges, textures=cfg.textures,
         strip_update=cfg.strip_update, energy=cfg.energy_function,
         luma=cfg.luma, delta_x=cfg.delta_x, rigidity=cfg.rigidity,
-        tie=cfg.tie, use_pallas=cfg.use_pallas,
+        tie=cfg.tie,
     )
     if seams_number < 0:
         out, vmaps = carve_batch(images, n, **kw)

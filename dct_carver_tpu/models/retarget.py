@@ -3,7 +3,7 @@
 (`interface.c:131-135`), then any width within the range is a cheap replay
 (`callback_resize_slider`, `interface.c:647-670`).
 
-TPU-native equivalent: carve N seams once to get the ordered visibility map;
+Equivalent here: carve N seams once to get the ordered visibility map;
 "sliding" to width w0−s (or w0+s) is then a single gather/scatter from the
 original image using `vmap <= s` — O(H·W) with no DP, jitted once for all s
 (dynamic s, static shapes: outputs keep buffer width, the logical width is
@@ -63,7 +63,6 @@ class InteractiveRetargeter:
         state = carve_ops.carve_n_seams(
             luma, self.max_seams, config.blocksize, config.edges,
             config.textures, strip_update=config.strip_update,
-            use_pallas=None if config.use_pallas else False,
             delta_x=config.delta_x, rigidity=config.rigidity,
             energy_fn=config.energy_function, tie=config.tie,
         )

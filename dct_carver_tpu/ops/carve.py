@@ -6,7 +6,10 @@ and columns >= width form a "dead region" that is (a) edge-filled in the luma
 plane so window clamping matches the reference's border behavior
 (`src/render.c:122-132`), and (b) masked to +inf in the energy so the DP never
 enters it.  This replaces the reference's realloc-per-seam carver state with a
-TPU-friendly fixed layout.
+fixed layout of static shapes.
+
+Each seam's DP runs as the GPU kernel or as XLA's scan, as
+`dct_carver_tpu.platform` decides; every other stage is XLA.
 
 Seam bookkeeping matches liblqr's visibility maps (`src/render.c:204-240`):
 `vmap[y, x_original] = k` if the pixel was removed by the k-th seam, else 0.
@@ -29,10 +32,9 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 
+from .. import platform
 from .dct import dct_energy_map, energy_from_bands
-from .dp import cumulative_energy, backtrack, mask_energy, remove_seam
-from ..pallas.apply_kernel import (apply_pallas_supported, apply_seam_pallas,
-                                   new_edge_value)
+from .dp import check_tie, cumulative_energy, backtrack, mask_energy, remove_seam
 
 
 def _bands_energy(bands, n: int, edges, textures, energy_fn):
@@ -55,16 +57,13 @@ class CarveState(NamedTuple):
     energy: jax.Array   # (H, W0) float32 — current energy (dead region garbage)
 
 
-def make_state(luma: jax.Array, width: int | None = None) -> CarveState:
-    """`width`: logical width when the buffer carries right padding (the
-    pad columns must replicate the last live column — the dead-region
-    edge-fill invariant)."""
+def make_state(luma: jax.Array) -> CarveState:
     H, W = luma.shape
     return CarveState(
         luma=luma,
         origcol=jnp.broadcast_to(jnp.arange(W, dtype=jnp.int32), (H, W)),
         vmap=jnp.zeros((H, W), jnp.int32),
-        width=jnp.asarray(W if width is None else width, jnp.int32),
+        width=jnp.asarray(W, jnp.int32),
         energy=jnp.zeros((H, W), jnp.float32),
     )
 
@@ -97,18 +96,13 @@ STRIP_ROW_BLOCK = 8  # default rows per block-aligned strip (static)
 
 def strip_row_block(H: int, blocksize: int, delta_x: int = 1,
                     W: int | None = None) -> int:
-    """Rows per block-shared strip window.  Bigger blocks mean fewer
-    gather/scatter grid steps (whose per-step DMA-descriptor setup, not
-    bandwidth, dominates the strip update) at the cost of a wider shared
+    """Rows per block-shared strip window.  A taller block means fewer
+    slab gathers and strip writes per seam, at the cost of a wider shared
     window (the seam drifts <= delta_x cols/row, so the window widens by
-    delta_x*(R-1)).  Pick the largest R that divides H (the Pallas scatter
-    writes (R, .) blocks) while the tap window still fits the 128-lane
-    validity bound of the gathered slab and the strip fits the image width.
-    (The big strip buffers ride pl.ANY + manual window DMA in the kernels,
-    so tall R costs no VMEM; the gwb <= 128 gate below bounds R per
-    blocksize.)"""
-    # candidates must be multiples of 8: the strip-energy kernel's output
-    # block is (R, cwin) and Mosaic requires sublane divisibility
+    delta_x*(R-1)).  Picks the largest candidate R that divides H while the
+    tap window stays within 128 columns and the strip fits the image width.
+    Seams do not depend on R.  The candidates and the 128-column bound are
+    inherited values, not yet tuned for the H100."""
     for R in (120, 112, 104, 96, 88, 80, 72, 64, 56, 48, 40, 32, 24, 16, 8):
         if (H % R == 0
                 and _strip_block_dims(blocksize, delta_x, R)[1] <= 128
@@ -126,18 +120,18 @@ def min_strip_width(blocksize: int, delta_x: int = 1,
 
 def _recompute_strip(state: CarveState, seam: jax.Array, blocksize: int,
                      edges, textures, delta_x: int = 1,
-                     energy_fn=None, e_shift=None) -> jax.Array:
+                     energy_fn=None) -> jax.Array:
     """Compacted energy with only the seam strip recomputed — block-aligned.
 
     The old energy is compacted with the same select-shift as the image.  The
     seam drifts <= 1 column/row, so within an R-row block all per-row strips
     fit in one shared window widened by R-1 columns; the luma slab for a block
-    is then ONE contiguous 2-D `dynamic_slice` (cheap TPU gather with large
-    slice sizes — the per-row general gather/scatter this replaces cost
-    ~2.5 ms/seam at 1080p, 74% of the carve).  Recomputed columns go through
-    the SAME `energy_from_bands` core as the full path, so every written value
-    is bitwise equal to a full recompute; writing the wider block strip is
-    therefore harmless (it overwrites correct values with identical ones).
+    is then ONE contiguous 2-D `dynamic_slice` instead of a per-row general
+    gather, and the block strip goes back with one `dynamic_update_slice`.
+    Recomputed columns go through the SAME `energy_from_bands` core as the
+    full path, so every written value is bitwise equal to a full recompute;
+    writing the wider block strip is therefore harmless (it overwrites
+    correct values with identical ones).
 
     Border clamping (src/render.c:146-151): edge-mode padding of the slab
     source replicates the clamp; the dead region is edge-filled, so the right
@@ -147,7 +141,7 @@ def _recompute_strip(state: CarveState, seam: jax.Array, blocksize: int,
     n = blocksize
     r = n // 2
     R = strip_row_block(H, n, delta_x, W)
-    E_shift = remove_seam(state.energy, seam) if e_shift is None else e_shift
+    E_shift = remove_seam(state.energy, seam)
     start, strip_w = _strip_bounds(seam, n, W, delta_x)
 
     nb = -(-H // R)
@@ -188,126 +182,49 @@ def _strip_block_dims(blocksize: int, delta_x: int = 1,
     return swb, swb + blocksize - 1
 
 
-def _recompute_strip_pallas(state: CarveState, seam: jax.Array, blocksize: int,
-                            edges, textures, delta_x: int = 1,
-                            energy_fn=None, e_shift=None) -> jax.Array:
-    """Same contract and bitwise-identical values as `_recompute_strip`, with
-    the slow XLA gather/scatter replaced by the Pallas window kernels
-    (pallas/strip_kernel.py).  On a real TPU with the builtin DCT energy the
-    chain math itself also runs fused in VMEM (`strip_energy_pallas`, the
-    same op emitter as the full-map kernel — bitwise equal to the XLA
-    chains on hardware); plugged energies and interpret mode keep the XLA
-    `energy_from_bands` path (interpret-mode chains carry ~ulp LLVM-FMA
-    noise, see pallas/energy_kernel.py).
+def find_seam(E: jax.Array, width: jax.Array, delta_x: int = 1,
+              rigidity: float = 0.0, tie: str = "leftmost",
+              interpret: bool = False) -> jax.Array:
+    """Seam of the masked energy: the GPU DP kernel where
+    `platform.seam_dp_kernel` picks it, else XLA's forward and backtrack
+    scans.  Both give bitwise the same seam.  Its device ops carry the
+    name scope "seam_dp" in profiler traces."""
+    with jax.named_scope("seam_dp"):
+        if platform.seam_dp_kernel(E.shape[1], delta_x, rigidity, interpret):
+            from ..pallas import seam_dp
 
-    Requires H % 8 == 0, W % 128 == 0, W >= 256, gwb <= 128
-    (see `strip_pallas_ok`).
-    """
-    from ..pallas.strip_kernel import (gather_slabs, scatter_strips,
-                                       strip_energy_pallas,
-                                       packed_strip_row_block,
-                                       strip_update_packed)
-
-    H, W = state.luma.shape
-    n = blocksize
-    r = n // 2
-    E_shift = remove_seam(state.energy, seam) if e_shift is None else e_shift
-    start, _ = _strip_bounds(seam, n, W, delta_x)
-
-    # packed-pair pipeline when the tap window fits a 64-lane slot: two
-    # blocks per 128-lane chain row -> half the chain rows (the strip's
-    # dominant cost at batch scale); bitwise equal to the unpacked path
-    Rp = packed_strip_row_block(H, n, delta_x) if energy_fn is None else None
-    R = Rp if Rp is not None else strip_row_block(H, n, delta_x, W)
-    nb = H // R
-    swb, gwb = _strip_block_dims(n, delta_x, R)
-    bs = jnp.clip(jnp.min(start.reshape(nb, R), axis=1),
-                  0, max(W - swb, 0)).astype(jnp.int32)
-
-    # padded luma: cols [r-1 left | W | to lane multiple right], rows
-    # [r-1 top | H | enough for the last block's slab DMA]; edge replication
-    # == the full path's index clamping (src/render.c:146-151)
-    slab_rows = -(-(R + n - 1) // 8) * 8
-    Wl = -(-(r - 1 + W + r) // 128) * 128
-    pad_bot = slab_rows - R - (r - 1)
-    lp = jnp.pad(state.luma, ((r - 1, pad_bot), (r - 1, Wl - W - (r - 1))),
-                 mode="edge")
-
-    if Rp is not None:
-        return strip_update_packed(lp, E_shift, bs, n, edges, textures,
-                                   swb, slab_rows, R)
-
-    slab256 = gather_slabs(lp, bs, slab_rows, row_block=R)  # (nb, slab_rows, 256)
-    if energy_fn is None and jax.default_backend() == "tpu":
-        strips = strip_energy_pallas(slab256, n, edges, textures, R)
-    else:
-        bands = jnp.stack(
-            [slab256[:, rr : rr + n, :gwb] for rr in range(R)], axis=1
-        )
-        strip_E = _bands_energy(
-            bands.reshape(nb * R, n, gwb), n, edges, textures, energy_fn
-        ).astype(jnp.float32).reshape(nb, R, swb)
-        strips = jnp.pad(strip_E, ((0, 0), (0, 0), (0, 256 - swb)))
-    return scatter_strips(E_shift, strips, bs, swb, row_block=R)
-
-
-def strip_pallas_ok(H: int, W: int, blocksize: int, delta_x: int = 1) -> bool:
-    """Static gate for the Pallas strip path (window fits one 256-lane tile)."""
-    from ..pallas.strip_kernel import strip_pallas_supported
-
-    R = strip_row_block(H, blocksize, delta_x, W)
-    _, gwb = _strip_block_dims(blocksize, delta_x, R)
-    return strip_pallas_supported(H, W, R) and gwb <= 128
+            return seam_dp.find_seam(E, width, tie=tie, interpret=interpret)
+        M = cumulative_energy(mask_energy(E, width), delta_x, rigidity)
+        return backtrack(M, delta_x, rigidity, tie)
 
 
 def _one_seam(state: CarveState, k: jax.Array, blocksize: int, edges, textures,
-              strip_update: bool, use_pallas: bool = False,
-              delta_x: int = 1, rigidity: float = 0.0,
-              energy_fn=None, tie: str = "leftmost") -> CarveState:
-    H, W = state.luma.shape
-    if use_pallas:
-        from ..pallas.dp_kernel import find_seam_pallas
-
-        seam = find_seam_pallas(state.energy, state.width, tie=tie)
-    else:
-        E = mask_energy(state.energy, state.width)
-        M = cumulative_energy(E, delta_x, rigidity)
-        seam = backtrack(M, delta_x, rigidity, tie)
+              strip_update: bool, delta_x: int = 1, rigidity: float = 0.0,
+              energy_fn=None, tie: str = "leftmost",
+              interpret: bool = False) -> CarveState:
+    W = state.luma.shape[1]
+    seam = find_seam(state.energy, state.width, delta_x, rigidity, tie,
+                     interpret)
 
     # record k-th seam at original coordinates (src/render.c:204-240
-    # semantics).  One-hot select instead of gather + scatter: XLA lowers
-    # the row-indexed scatter to a slow general scatter (~0.33 ms/batch-seam
-    # at config-4 scale vs 0.09 for the two masked passes); values are
-    # identical because vmap is indexed by original coordinate, so exactly
-    # one column per row equals `orig`.
+    # semantics).  One-hot select instead of gather + scatter: the
+    # row-indexed scatter lowers to a general scatter, the two masked passes
+    # to plain fused loops; values are identical because vmap is indexed by
+    # original coordinate, so exactly one column per row equals `orig`.
     col = jnp.arange(W, dtype=jnp.int32)[None, :]
     hit = col == seam[:, None]
     orig = jnp.sum(jnp.where(hit, state.origcol, 0), axis=1)
     vmap = jnp.where(col == orig[:, None], k, state.vmap)
 
     new_width = state.width - 1
-    e_shift = None
-    if (use_pallas and apply_pallas_supported(H, W)
-            and state.luma.dtype == jnp.float32):
-        # one fused pass compacts all three buffers + edge-fills the luma
-        edge_new = new_edge_value(state.luma, seam, state.width)
-        luma, origcol, e_shift = apply_seam_pallas(
-            state.luma, state.origcol, state.energy, seam, edge_new,
-            state.width)
-    else:
-        luma = _edge_fill(remove_seam(state.luma, seam), new_width)
-        origcol = remove_seam(state.origcol, seam)
+    luma = _edge_fill(remove_seam(state.luma, seam), new_width)
+    origcol = remove_seam(state.origcol, seam)
 
     n_eff = energy_fn.n if energy_fn is not None else blocksize
     if strip_update:
         mid = state._replace(luma=luma, width=new_width)
-        if use_pallas and strip_pallas_ok(H, W, n_eff, delta_x):
-            energy = _recompute_strip_pallas(mid, seam, n_eff, edges,
-                                             textures, delta_x, energy_fn,
-                                             e_shift=e_shift)
-        else:
-            energy = _recompute_strip(mid, seam, n_eff, edges, textures,
-                                      delta_x, energy_fn, e_shift=e_shift)
+        energy = _recompute_strip(mid, seam, n_eff, edges, textures,
+                                  delta_x, energy_fn)
     else:
         energy = full_energy_map(luma, blocksize, edges, textures,
                                  energy_fn=energy_fn)
@@ -315,43 +232,21 @@ def _one_seam(state: CarveState, k: jax.Array, blocksize: int, edges, textures,
     return CarveState(luma, origcol, vmap, new_width, energy)
 
 
-def resolve_use_pallas(use_pallas, H: int, W: int) -> bool:
-    """None = auto: Pallas kernels on a real TPU when shapes are aligned.
-    (In interpreter mode on CPU they are correct but much slower than scan —
-    tests opt in explicitly.)"""
-    from ..pallas.dp_kernel import pallas_supported
-
-    if use_pallas is None:
-        return jax.default_backend() == "tpu" and pallas_supported(H, W)
-    return bool(use_pallas) and pallas_supported(H, W)
-
-
 def full_energy_map(luma: jax.Array, blocksize: int, edges, textures,
                     center: str = "carve", energy_fn=None) -> jax.Array:
-    """Full-image energy, f32 — the fused Pallas kernel on TPU (bit-identical
-    to the XLA chains there, verified on hardware), XLA elsewhere/f64.
-    With a pluggable `energy_fn` (ops/energy_fn.py) the function's own
-    vectorized path runs instead of the DCT kernels."""
-    from ..pallas.energy_kernel import dct_energy_pallas, energy_pallas_supported
-
-    H, W = luma.shape
+    """Full-image energy, f32.  With a pluggable `energy_fn`
+    (ops/energy_fn.py) the function's own vectorized path runs instead of
+    the DCT chains."""
     if energy_fn is not None:
         return energy_fn.energy_map(luma, center).astype(jnp.float32)
-    if (
-        jax.default_backend() == "tpu"
-        and luma.dtype == jnp.float32
-        and energy_pallas_supported(W, blocksize)
-    ):
-        return dct_energy_pallas(luma, blocksize, edges, textures,
-                                 center=center)
     return dct_energy_map(luma, blocksize, edges, textures,
                           center=center).astype(jnp.float32)
 
 
 @functools.partial(
     jax.jit,
-    static_argnames=("n_seams", "blocksize", "strip_update", "use_pallas",
-                     "delta_x", "rigidity", "energy_fn", "tie"),
+    static_argnames=("n_seams", "blocksize", "strip_update", "delta_x",
+                     "rigidity", "energy_fn", "tie", "interpret"),
 )
 def carve_n_seams(
     luma: jax.Array,
@@ -360,50 +255,31 @@ def carve_n_seams(
     edges,
     textures,
     strip_update: bool = True,
-    use_pallas: bool | None = None,
     delta_x: int = 1,
     rigidity: float = 0.0,
     energy_fn=None,
     tie: str = "leftmost",
+    interpret: bool = False,
 ) -> CarveState:
     """Remove `n_seams` vertical seams from a (H, W) luma plane.
 
     Returns the final CarveState; the caller reconstructs outputs from `vmap`
     (see `reconstruct_removed` / `reconstruct_enlarged`).  The first energy
     map is computed in full; subsequent seams use strip updates when enabled.
-    `use_pallas`: None = auto (TPU + aligned shapes); the Pallas seam finder
-    is bitwise-identical to the scan path.  `delta_x`/`rigidity` generalize
-    liblqr's `lqr_carver_init` parameters (see ops.dp._rigidity_penalties);
-    non-default values use the scan DP (the Pallas kernel implements the
-    reference's (1, 0) configuration).  `energy_fn`: a pluggable
+    `delta_x`/`rigidity` generalize liblqr's `lqr_carver_init` parameters
+    (see ops.dp._rigidity_penalties).  `energy_fn`: a pluggable
     ops.energy_fn.EnergyFunction replacing the DCT energy (the
     lqr_carver_set_energy_function analog); `blocksize`/`edges`/`textures`
     are ignored when it is set.  `tie`: "leftmost"/"rightmost" DP tie rule
     (the S1/S2 spec knob of docs/PARITY.md, applied in the end-column argmin
-    and every backtrack step).
+    and every backtrack step).  `interpret=True` runs the GPU kernels
+    through the Pallas interpreter (tests on hosts without a GPU).
     """
-    from .dp import check_tie
-
     check_tie(tie)
     H, W = luma.shape
     if delta_x < 1:
         raise ValueError(f"delta_x must be >= 1, got {delta_x}")
-    if delta_x != 1 or rigidity != 0.0:
-        use_pallas = False
-    # Non-lane-aligned widths: edge-pad the buffer to the Pallas alignment
-    # so ANY width takes the kernel path.  Pad columns replicate the last
-    # live column — exactly the dead-region edge-fill invariant the carve
-    # maintains — the DP masks them to +inf, and seams stay bitwise equal
-    # to the unpadded scan path (tested).  Buffers are sliced back at the
-    # end so callers see the original width.
-    W0 = W
-    pad = 0
-    if W % 128 and resolve_use_pallas(use_pallas, H, -(-W // 128) * 128):
-        pad = (-W) % 128
-        W += pad
-        luma = jnp.pad(luma, ((0, 0), (0, pad)), mode="edge")
-    use_pallas = resolve_use_pallas(use_pallas, H, W)
-    state = make_state(luma, width=W0)
+    state = make_state(luma)
     # energy is stored as f32 — liblqr's gfloat (src/dct.c:96) — no matter
     # the compute dtype; the DP then matches the oracle's f32 arithmetic
     E0 = full_energy_map(luma, blocksize, edges, textures, energy_fn=energy_fn)
@@ -412,23 +288,16 @@ def carve_n_seams(
     # strips wider than the buffer would scatter out of bounds: fall back to
     # full recompute for tiny images (static decision; W is a trace constant)
     n_eff = energy_fn.n if energy_fn is not None else blocksize
-    if luma.shape[1] < min_strip_width(
-            n_eff, delta_x, strip_row_block(H, n_eff, delta_x, W)):
+    if W < min_strip_width(n_eff, delta_x,
+                           strip_row_block(H, n_eff, delta_x, W)):
         strip_update = False
 
     def body(i, s):
         return _one_seam(s, (i + 1).astype(jnp.int32), blocksize, edges,
-                         textures, strip_update, use_pallas, delta_x,
-                         rigidity, energy_fn, tie)
+                         textures, strip_update, delta_x, rigidity,
+                         energy_fn, tie, interpret)
 
-    state = jax.lax.fori_loop(0, n_seams, body, state)
-    if pad:
-        state = CarveState(
-            luma=state.luma[:, :W0], origcol=state.origcol[:, :W0],
-            vmap=state.vmap[:, :W0], width=state.width,
-            energy=state.energy[:, :W0],
-        )
-    return state
+    return jax.lax.fori_loop(0, n_seams, body, state)
 
 
 @functools.partial(jax.jit, static_argnames=("n_seams",))

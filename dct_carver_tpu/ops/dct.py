@@ -1,12 +1,12 @@
-"""Blockwise sliding-window DCT energy — pure-JAX reference path.
+"""Blockwise sliding-window DCT energy — the one energy path on every backend.
 
-TPU-first design notes
-----------------------
+Design notes
+------------
 The reference computes one N×N DCT *per pixel* via scalar C kernels
 (`/root/reference/src/dct.c:77-94`, `src/fft2d/shrtdct.c:55`).  Here the same
 math is recast as two separable 1-D DCT contractions over sliding windows
-(vertical then horizontal), batched over the whole image as matmuls that XLA
-maps onto the TPU MXU/VPU — O(N²) MACs per pixel per stage instead of the
+(vertical then horizontal), batched over the whole image as multiply-add
+chains that XLA fuses — O(N²) MACs per pixel per stage instead of the
 reference's per-pixel block transform.
 
 Both the full-image path and the per-seam strip-update path (ops/carve.py)
@@ -17,9 +17,6 @@ full recompute (asserted in tests/test_carve.py).
 DCT conventions (must match the reference exactly — see oracle/reference.py):
   * N in {8,16}: orthonormal DCT-II (src/fft2d/shrtdct.c:190-205).
   * N in {2,4}:  unnormalized case-2 ddct2d (src/fft2d/fftsg2d.c:200-211).
-
-The fused Pallas kernel in `dct_carver_tpu/pallas/` implements the same
-contract; this module is the semantics anchor and the fallback path.
 """
 
 from __future__ import annotations
@@ -76,10 +73,10 @@ def energy_from_bands(bands: jax.Array, n: int, edges, textures) -> jax.Array:
 
     # Both DCT stages are explicit multiply-add chains (NOT dot/einsum):
     # elementwise mul/add are exactly-rounded IEEE ops, so the result is
-    # bit-determined on every backend, and the Pallas energy kernel
-    # (pallas/energy_kernel.py) reproduces the same chains bitwise.  XLA also
-    # fuses the whole chain + argmax into a few kernels, so nothing of n^2
-    # size is materialized in HBM.
+    # bit-determined wherever the compiler does not contract them into FMAs
+    # (XLA:GPU does not; docs/PARITY.md).  XLA fuses the whole chain +
+    # argmax into a few kernels, so nothing of n^2 size is materialized in
+    # device memory.
 
     # stage 1 — vertical 1-D DCT: V[ky][i, c] = sum_dy D[ky, dy] * bands[i, dy, c]
     V = []

@@ -1,11 +1,14 @@
 """Seam dynamic programming + seam removal/insertion ops (single device).
 
-TPU-first recast of the liblqr carving engine's core (the external `lqr-1`
-library behind `/root/reference/src/render.c:312-315,377`):
+A recast of the liblqr carving engine's core (the external `lqr-1` library
+behind `/root/reference/src/render.c:312-315,377`) as array programs:
 
 * Cumulative energy ``M[i,j] = E[i,j] + min(M[i-1,j-1], M[i-1,j], M[i-1,j+1])``
   (delta_x=1, rigidity=0 per `src/render.c:313`) as a `lax.scan` over rows —
-  each step is one fused VPU pass over the row; no per-pixel callbacks.
+  each step is one fused pass over the row; no per-pixel callbacks.  On a
+  GPU the carve runs this DP as one kernel instead (`pallas/seam_dp.py`,
+  chosen by `dct_carver_tpu.platform`); these scans stay the semantics
+  anchor it is tested against.
 * Backtracking as a reverse `lax.scan` with a 3-wide dynamic slice per row.
 * Seam removal as a branch-free select-shift compaction (no gathers in the
   inner loop) over a static-width buffer with a dynamic logical width —
@@ -15,7 +18,7 @@ Tie conventions (identical to oracle/reference.py): the `tie` knob picks the
 leftmost (default) or rightmost argmin at the last row AND among the
 backtrack candidates.  The real convention lives inside external liblqr
 (unobservable in this environment — docs/PARITY.md S1/S2); making it a knob
-applied identically in every path (oracle, native C++, scan, Pallas,
+applied identically in every path (oracle, native C++, scan, GPU kernel,
 spatial) means whichever convention real liblqr has, the framework can match
 it with a flag.
 

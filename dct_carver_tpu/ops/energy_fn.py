@@ -1,5 +1,5 @@
 """Pluggable per-pixel energy functions — the carving engine's
-`lqr_carver_set_energy_function` surface, TPU-native.
+`lqr_carver_set_energy_function` surface, vectorized.
 
 Reference: liblqr lets the host plug ANY per-pixel energy callback into the
 carver; the callback reads an edge-clamped window around the pixel through a
@@ -9,7 +9,7 @@ reading-window handle (`lqr_carver_set_energy_function` at
 energy in this way; liblqr also ships builtin gradient energies the host can
 select instead.
 
-TPU-native design: instead of a scalar per-pixel callback (one host call per
+Design: instead of a scalar per-pixel callback (one host call per
 pixel — the reference's dominant cost), an energy function here is a
 *vectorized* function over per-row vertical bands, the same internal layout
 the DCT path uses (ops/dct.py `rows_to_bands`): for output row i,

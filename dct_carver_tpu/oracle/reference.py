@@ -3,8 +3,9 @@
 This module is the ground-truth, scalar-semantics re-derivation of the
 reference plugin's behavior (avivrosenberg/dct-carver + liblqr).  It is a
 *spec*, written fresh from the observed semantics — not a port of the C code.
-Every rule below cites the reference file:line it was derived from.  The JAX /
-Pallas fast paths are tested seam-for-seam against this module.
+Every rule below cites the reference file:line it was derived from.  The JAX
+fast paths (XLA and the GPU seam-DP kernel) are tested seam-for-seam against
+this module.
 
 Semantics captured (reference citations):
 

@@ -2,10 +2,10 @@
 
 The reference processes one image per plugin invocation (`render()`,
 src/render.c:327); per-image independence makes batch the outermost, trivially
-shardable axis.  TPU-native design: `vmap` the whole static-shape carve loop
-over a batch and shard the batch axis over the mesh with `NamedSharding` —
-XLA partitions the program with zero collectives (per-image independence
-preserved end-to-end).
+shardable axis.  `vmap` the whole static-shape carve loop over a batch and
+shard the batch axis over the mesh with `NamedSharding` — XLA partitions the
+program with zero collectives (per-image independence preserved end to end).
+Under `vmap` the seam-DP kernel runs one program per image.
 """
 
 from __future__ import annotations
@@ -34,8 +34,7 @@ def make_mesh(n_devices: int | None = None, axis_name: str = "data") -> Mesh:
 @functools.partial(
     jax.jit,
     static_argnames=("n_seams", "blocksize", "strip_update", "luma_mode",
-                     "energy_fn", "delta_x", "rigidity", "tie",
-                     "use_pallas"),
+                     "energy_fn", "delta_x", "rigidity", "tie"),
 )
 def batch_carve_states(
     images: jax.Array,
@@ -49,7 +48,6 @@ def batch_carve_states(
     delta_x: int = 1,
     rigidity: float = 0.0,
     tie: str = "leftmost",
-    use_pallas: bool = True,
 ):
     """vmap'ed carve over a batch of identically-shaped images (B,H,W[,C]).
 
@@ -61,7 +59,6 @@ def batch_carve_states(
         lambda l: carve_ops.carve_n_seams(
             l, n_seams, blocksize, edges, textures, strip_update=strip_update,
             energy_fn=energy_fn, delta_x=delta_x, rigidity=rigidity, tie=tie,
-            use_pallas=None if use_pallas else False,
         )
     )(lumas)
 
@@ -81,7 +78,6 @@ def carve_batch(
     delta_x: int = 1,
     rigidity: float = 0.0,
     tie: str = "leftmost",
-    use_pallas: bool = True,
 ):
     """Remove `n_seams` vertical seams from every image in a batch, data-parallel
     over `mesh` (config 4 of BASELINE.md: 1024 × 1-Mpix images, 128 seams).
@@ -108,7 +104,7 @@ def carve_batch(
     states = batch_carve_states(
         images, n_seams, blocksize, edges, textures, strip_update,
         luma_mode=luma, energy_fn=resolve_energy(energy),
-        delta_x=delta_x, rigidity=rigidity, tie=tie, use_pallas=use_pallas,
+        delta_x=delta_x, rigidity=rigidity, tie=tie,
     )
     if not reconstruct:
         return None, states.vmap[:B]

@@ -6,7 +6,7 @@ fixes are (a) the energy's sliding window needs a blocksize-wide column halo
 (`src/render.c:146-151` geometry), and (b) liblqr's column-DP recurrence
 (delta_x=1) must cross tile boundaries so seams stay globally optimal.
 
-TPU-native design (`shard_map` over a 1-D mesh axis "x", columns sharded),
+Design (`shard_map` over a 1-D mesh axis "x", columns sharded),
 with collectives BLOCKED over K rows so their count is O(H/K) per seam
 instead of O(H) (the r2 per-row frontier exchange):
 
@@ -34,7 +34,8 @@ instead of O(H) (the r2 per-row frontier exchange):
              from the right neighbor via `ppermute`.
 
 The result is seam-for-seam identical to `ops.carve.carve_n_seams`
-(asserted in tests/test_spatial.py), with collectives riding ICI.
+(asserted in tests/test_spatial.py).  Every per-shard stage is plain XLA;
+the collectives are lowered by XLA (NCCL on GPUs).
 `collectives_per_seam` gives the per-seam collective budget: ~3*ceil(H/K)+9
 vs ~3*H for the per-row design (>30x fewer at 8K with K=32).
 """
@@ -50,13 +51,8 @@ import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from jax import shard_map
 
-from ..ops.dp import _rigidity_penalties, _shift_row
+from ..ops.dp import _argmin_tie, _rigidity_penalties, _shift_row
 from ..ops.energy_fn import resolve_energy
-from ..pallas.spatial_dp_kernel import (block_dp_rows, block_dp_supported,
-                                        block_dp_parts_rows,
-                                        block_dp_parts_supported,
-                                        seg_walk_rows, seg_walk_supported,
-                                        sharded_apply_rows, apply_supported)
 from ..ops.carve import (_bands_energy, _strip_bounds, _strip_block_dims,
                          min_strip_width, strip_row_block)
 from .mesh import make_mesh
@@ -66,30 +62,25 @@ __all__ = ["spatial_carve_n_seams", "spatial_enlarge_n_seams",
            "SpatialCarveResult", "SpatialCarveState",
            "collectives_per_seam"]
 
-# Rows per DP/backtrack collective exchange (K).  Round-5 sweep on the v5e
-# (scripts/profile_spatial.py, 8K): K=96 beats K=32 on-chip (dp+bt 2.29 vs
-# 2.61 ms/seam — fewer kernel launches + halo concats) AND cuts the
-# per-seam collective count 412 -> 142 (the 2-host scaling lever,
-# docs/SCALING.md).  Seams are identical for any K (trapezoid exactness).
+# Rows per DP/backtrack collective exchange (K).  Fewer, taller blocks mean
+# fewer collectives per seam (`collectives_per_seam`) and a wider frontier
+# halo.  The value is inherited, not yet tuned for the H100.  Seams are
+# identical for any K (trapezoid exactness).
 FRONTIER_BLOCK = 96
 
 
 def collectives_per_seam(H: int, K: int = FRONTIER_BLOCK,
-                         blocked: bool = True,
-                         fused_apply: bool = False) -> int:
+                         blocked: bool = True) -> int:
     """Collective-op count per carved seam (single-hop halo regime).
 
     Blocked design: 2 ppermutes per K-row DP block, 1 psum per K-row
     backtrack segment + 2 pmin (global argmin), 2 ppermutes (strip halo),
-    compaction + edge fill (3 ppermutes + 1 psum, or with the fused
-    Pallas apply 1 packed ppermute — the edge fill is a collective-free
-    right-edge window pass), 1 psum (vmap bookkeeping).
-    Per-row design (for comparison): 2 ppermutes per DP row + 1 psum per
-    backtrack row."""
+    compaction + edge fill (3 ppermutes + 1 psum), 1 psum (vmap
+    bookkeeping).  Per-row design (for comparison): 2 ppermutes per DP row
+    + 1 psum per backtrack row."""
     nb = -(-H // K)
     if blocked:
-        apply = 1 if fused_apply else (3 + 1)
-        return 2 * nb + (nb + 2) + 2 + apply + 1
+        return 2 * nb + (nb + 2) + 2 + 4 + 1
     return 3 * H
 
 
@@ -124,9 +115,8 @@ def _halo_gather(x, n_left: int, n_right: int, axis):
 
     Single-hop halos ship ONLY the edge columns (slicing commutes with
     ppermute, so values are identical to permuting the full block — but the
-    message is n_halo/Wl of the size: at 8K/2-hosts the DP exchange drops
-    from ~1.5 MB to ~75 KB per block, the strip halo from ~60 MB to ~1 MB
-    per seam; ICI bytes per seam go from O(H*Wl) to O(H*halo)).  Multi-hop
+    message is n_halo/Wl of the size: bytes exchanged per seam go from
+    O(H*Wl) to O(H*halo)).  Multi-hop
     (halo wider than one shard — tiny test shards) keeps the full-width
     relay.  Positions beyond the mesh ends arrive as ZEROS — callers mask
     or clamp them by global column index."""
@@ -210,8 +200,7 @@ def _sharded_energy(local_luma, blocksize, edges, textures, W, axis,
 # -------------------------------------------------------------------- DP ----
 
 def _sharded_dp(E_local, width, K: int, axis, unroll: bool = False,
-                delta_x: int = 1, rigidity: float = 0.0,
-                use_pallas: bool = False):
+                delta_x: int = 1, rigidity: float = 0.0):
     """Blocked sharded cumulative energy.  E_local (H, Wl) f32 (unmasked);
     returns ext_M (H, We) with We = Wl + 4·K·delta_x (halo Hh = 2·K·delta_x
     columns per side; ext column e holds global column lo - Hh + e).
@@ -229,20 +218,6 @@ def _sharded_dp(E_local, width, K: int, axis, unroll: bool = False,
     H, Wl = E_local.shape
     d = delta_x
     Hh = 2 * K * d
-    # parts path: halos ride as SEPARATE lane-aligned operands and the
-    # halo-extended rows are built inside the kernel — the per-block
-    # (Kb+1, Wl) message concat and (Kb+1, We) extended-buffer
-    # materialization (~2 full-image passes per seam at 8K) disappear.
-    # Hh rounds up to a lane multiple (more halo than the trapezoid needs
-    # is harmless — exactness is monotone in Hh); same 2 ppermutes/block.
-    use_parts = (use_pallas and rigidity == 0.0 and d == 1
-                 and Wl % 128 == 0)
-    if use_parts:
-        Hh_p = -(-Hh // 128) * 128
-        if Hh_p <= Wl and block_dp_parts_supported(Wl, Hh_p, d):
-            Hh = Hh_p
-        else:
-            use_parts = False
     We = Wl + 2 * Hh
     lo = idx * Wl
     inf = jnp.float32(jnp.inf)
@@ -251,26 +226,9 @@ def _sharded_dp(E_local, width, K: int, axis, unroll: bool = False,
     pen = _rigidity_penalties(d, rigidity, jnp.float32)
 
     def block(prev, E_blk):
-        if use_parts:
-            # one ppermute pair ships ONLY the Hh edge columns of the
-            # frontier + energy block; row assembly happens in VMEM
-            lh = _from_left(jnp.concatenate(
-                [prev[None, Wl - Hh:], E_blk[:, Wl - Hh:]], axis=0), axis)
-            rh = _from_right(jnp.concatenate(
-                [prev[None, :Hh], E_blk[:, :Hh]], axis=0), axis)
-            Ms = block_dp_parts_rows(prev, E_blk, lh, rh, lo - Hh, width)
-            return Ms[-1, Hh:Hh + Wl], Ms
-
         # one ppermute pair ships the frontier row + the K-row energy block
         msg = jnp.concatenate([prev[None, :], E_blk], axis=0)
         ext = _halo_gather(msg, Hh, Hh, axis)          # (Kb + 1, We)
-
-        if use_pallas and block_dp_supported(We, d) and rigidity == 0.0:
-            # one kernel per block: K rows with the frontier in registers,
-            # window masking + inf-tail widening fused in-kernel
-            # (bitwise == the scan - add/min only, pallas/spatial_dp_kernel)
-            Ms = block_dp_rows(ext, lo - Hh, width)
-            return Ms[-1, Hh:Hh + Wl], Ms
 
         ext_prev = jnp.where(valid, ext[0], inf)
         ext_E = jnp.where(valid[None, :], ext[1:], inf)
@@ -307,7 +265,7 @@ def _sharded_dp(E_local, width, K: int, axis, unroll: bool = False,
 
 def _seg_walk(ext_M_rows, j_bottom, Wl: int, K: int, axis,
               delta_x: int = 1, rigidity: float = 0.0,
-              use_pallas: bool = False, tie: str = "leftmost"):
+              tie: str = "leftmost"):
     """Walk one backtrack segment locally on the owner shard of `j_bottom`,
     then broadcast it.  ext_M_rows: (Kb, We) rows [s-1, e-1) of ext_M;
     j_bottom: () i32 global seam column at row e-1 (replicated).  Returns
@@ -323,30 +281,25 @@ def _seg_walk(ext_M_rows, j_bottom, Wl: int, K: int, axis,
     idx = _axis_index(axis)
     lo = idx * Wl
     We = ext_M_rows.shape[1]
-    Hh = (We - Wl) // 2  # may exceed 2*K*d (lane-aligned parts path)
+    Hh = (We - Wl) // 2
     owned = (j_bottom >= lo) & (j_bottom < lo + Wl)
     wstart = jnp.clip(j_bottom - lo + Hh - K * d, 0, We - (2 * K * d + 1))
     win = jax.lax.dynamic_slice(ext_M_rows, (0, wstart), (Kb, 2 * K * d + 1))
-    if use_pallas and seg_walk_supported(K, d) and rigidity == 0.0:
-        # one-hot window walk in one kernel (bitwise == the scalar scan)
-        seg = seg_walk_rows(win, K, tie=tie)
-    else:
-        winp = jnp.pad(win, ((0, 0), (d, d)), constant_values=jnp.inf)
-        pen = jnp.asarray(_rigidity_penalties(d, rigidity, jnp.float32),
-                          jnp.float32)
-        from ..ops.dp import _argmin_tie
+    winp = jnp.pad(win, ((0, 0), (d, d)), constant_values=jnp.inf)
+    pen = jnp.asarray(_rigidity_penalties(d, rigidity, jnp.float32),
+                      jnp.float32)
 
-        def step(jl, row_p):
-            # padded (2d+1)-window [jl-d .. jl+d]; tie-most-min rule
-            wd = jax.lax.dynamic_slice(row_p, (jl,), (2 * d + 1,))
-            if rigidity != 0.0:
-                wd = wd + pen
-            jn = jl - d + _argmin_tie(wd, tie)
-            return jn, jn
+    def step(jl, row_p):
+        # padded (2d+1)-window [jl-d .. jl+d]; tie-most-min rule
+        wd = jax.lax.dynamic_slice(row_p, (jl,), (2 * d + 1,))
+        if rigidity != 0.0:
+            wd = wd + pen
+        jn = jl - d + _argmin_tie(wd, tie)
+        return jn, jn
 
-        _, seg_rev = jax.lax.scan(step, _pvary(jnp.int32(K * d), axis),
-                                  winp[::-1])
-        seg = seg_rev[::-1]
+    _, seg_rev = jax.lax.scan(step, _pvary(jnp.int32(K * d), axis),
+                              winp[::-1])
+    seg = seg_rev[::-1]
     seg_g = seg + (j_bottom - K * d)                   # rows [s-1, e-1)
     seg_g = jnp.where(owned, seg_g, 0)
     return jax.lax.psum(seg_g, axis)
@@ -355,11 +308,10 @@ def _seg_walk(ext_M_rows, j_bottom, Wl: int, K: int, axis,
 def _sharded_backtrack(ext_M, width, K: int, axis, Wl: int,
                        unroll: bool = False,
                        delta_x: int = 1, rigidity: float = 0.0,
-                       use_pallas: bool = False, tie: str = "leftmost"):
+                       tie: str = "leftmost"):
     """Global tie-most-min backtrack over the blocked sharded M.
-    Returns (H,) global seam columns, replicated on every shard.
-    `Wl` is the owned width (the ext halo may be wider than 2*K*delta_x on
-    the lane-aligned parts path, so it cannot be inferred from K)."""
+    Returns (H,) global seam columns, replicated on every shard; `Wl` is
+    the owned width."""
     H, We = ext_M.shape
     Hh = (We - Wl) // 2
     idx = _axis_index(axis)
@@ -387,13 +339,13 @@ def _sharded_backtrack(ext_M, width, K: int, axis, Wl: int,
 
     if nfull == 0:
         seg = _seg_walk(ext_M[: H - 1], j, Wl, K, axis, delta_x,
-                        rigidity, use_pallas, tie)  # rows [0, H-1)
+                        rigidity, tie)  # rows [0, H-1)
         segs.append(seg)
     else:
         if rem:
             # remainder chunk: rows [nfull*K - 1, H - 1)
             seg = _seg_walk(ext_M[nfull * K - 1: H - 1], j, Wl, K, axis,
-                            delta_x, rigidity, use_pallas, tie)
+                            delta_x, rigidity, tie)
             segs.append(seg)
             j = seg[0]
         if nfull > 1:
@@ -401,7 +353,7 @@ def _sharded_backtrack(ext_M, width, K: int, axis, Wl: int,
                 rows = jax.lax.dynamic_slice(
                     ext_M, (b * K - 1, 0), (K, We))    # rows [bK-1, bK+K-1)
                 seg = _seg_walk(rows, jc, Wl, K, axis, delta_x, rigidity,
-                                use_pallas, tie)
+                                tie)
                 return seg[0], seg
 
             bs = jnp.arange(nfull - 1, 0, -1)
@@ -410,7 +362,7 @@ def _sharded_backtrack(ext_M, width, K: int, axis, Wl: int,
             segs.append(seg_stack[::-1].reshape((nfull - 1) * K))
         # block-0 chunk: rows [0, K-1)
         seg0 = _seg_walk(ext_M[: K - 1], j, Wl, K, axis, delta_x, rigidity,
-                          use_pallas, tie)
+                         tie)
         segs.append(seg0)
 
     return jnp.concatenate(segs[::-1] + [j_last[None]])
@@ -419,8 +371,8 @@ def _sharded_backtrack(ext_M, width, K: int, axis, Wl: int,
 # ------------------------------------------------------------ strip update --
 
 def _sharded_strip_update(luma_l, E_shift, seam, blocksize: int, edges,
-                          textures, W: int, axis, R: int | None = None,
-                          delta_x: int = 1, energy_fn=None):
+                          textures, W: int, axis, delta_x: int = 1,
+                          energy_fn=None):
     """Per-seam sharded energy update: recompute only the strip around the
     removed seam.  Bitwise equal at every owned live column to the
     single-device `_recompute_strip` (same slab values -> same
@@ -428,8 +380,7 @@ def _sharded_strip_update(luma_l, E_shift, seam, blocksize: int, edges,
     `blocksize` must be the function's window size (energy_fn.n)."""
     H, Wl = luma_l.shape
     n = blocksize
-    if R is None:
-        R = _spatial_strip_rows(H, n, delta_x, W)
+    R = strip_row_block(H, n, delta_x, W)  # same blocks as single-device
     r = n // 2
     idx = _axis_index(axis)
     lo = idx * Wl
@@ -467,97 +418,6 @@ def _sharded_strip_update(luma_l, E_shift, seam, blocksize: int, edges,
     return out.reshape(nb * R, Wl + 2 * swb)[:H, swb:swb + Wl]
 
 
-def _spatial_strip_pallas_ok(H: int, Wl: int, n: int, delta_x: int,
-                             R: int | None = None) -> bool:
-    """Static gate for the Pallas sharded strip path (window kernels)."""
-    if R is None:
-        R = _spatial_strip_rows(H, n, delta_x)  # gate is W-agnostic; the
-        # updaters re-derive R with W and fall back to the XLA path on
-        # mismatch only for widths far below the spatial regime
-    swb, gwb = _strip_block_dims(n, delta_x, R)
-    return (H % R == 0 and Wl % 128 == 0 and Wl >= 256
-            and gwb <= 128 and swb <= 128)
-
-
-def _spatial_strip_rows(H: int, n: int, delta_x: int,
-                        W: int | None = None) -> int:
-    """Rows per strip block — the same large-R selection as the
-    single-device path (ops.carve.strip_row_block): per-grid-step overhead,
-    not bandwidth, dominates the strip kernels, so fewer/taller blocks win
-    (540 -> 90 grid steps at 8K, R 8 -> 48).  Values are R-independent —
-    any R-row shared window writes the same bitwise energies (the block
-    window covers every row's true strip; all written values equal a full
-    recompute)."""
-    return strip_row_block(H, n, delta_x, W)
-
-
-def _sharded_strip_update_pallas(luma_l, E_shift, seam, blocksize: int,
-                                 edges, textures, W: int, axis,
-                                 R: int | None = None, delta_x: int = 1,
-                                 energy_fn=None):
-    """Pallas-windowed variant of `_sharded_strip_update`: identical values
-    at every owned live column (same halo, same slab values, same energy
-    chains), with the vmapped dynamic_slice gather / dynamic_update_slice
-    scatter replaced by the 256-lane window kernels of
-    pallas/strip_kernel.py (~6.1 -> ~2 ms/seam at 8K).  Cross-boundary
-    blocks scatter into a 128-lane discardable halo frame, mirroring the
-    XLA path's swb-padded frame."""
-    from ..pallas.strip_kernel import (WIN, _gather_slabs_call,
-                                      _scatter_strips_call,
-                                      _strip_energy_call)
-
-    H, Wl = luma_l.shape
-    n = blocksize
-    if R is None:
-        R = _spatial_strip_rows(H, n, delta_x, W)
-    r = n // 2
-    idx = _axis_index(axis)
-    lo = idx * Wl
-
-    start, _ = _strip_bounds(seam, n, W, delta_x)      # (H,) global
-    nb = H // R
-    swb, gwb = _strip_block_dims(n, delta_x, R)
-    bs = jnp.clip(jnp.min(start.reshape(nb, R), axis=1),
-                  0, max(W - swb, 0))                  # (nb,) global
-
-    # halo-extended luma covering every slab that can overlap this shard
-    HL, HR = swb + r - 1, swb + r
-    ext = _edge_clamped_halo(luma_l, HL, HR, W, axis)  # (H, ext_w)
-    ext_w = Wl + HL + HR
-    # window-gather buffer: rows padded like the single-device lp; lanes
-    # padded right by >= WIN so the 128-aligned window start never clamps
-    # (pad values replicate the edge-clamped last halo column — windows
-    # clipped to [0, ext_w - gwb] never read them in valid lanes)
-    slab_rows = -(-(R + n - 1) // 8) * 8
-    Wlp = -(-(ext_w + WIN) // 128) * 128
-    pad_bot = slab_rows - R - (r - 1)
-    lp = jnp.pad(ext, ((r - 1, pad_bot), (0, Wlp - ext_w)), mode="edge")
-    # slab start in ext cols: global bs - (r-1) -> bs - lo + HL - (r-1)
-    es = jnp.clip(bs + swb - lo, 0, ext_w - gwb).astype(jnp.int32)
-    slab256 = _gather_slabs_call(lp, es, slab_rows, R, nb, lp.shape[0])
-    slab256 = slab256.reshape(nb, slab_rows, WIN)
-
-    if energy_fn is None and jax.default_backend() == "tpu":
-        strips = _strip_energy_call(
-            slab256.reshape(nb * slab_rows, WIN), n, edges, textures, R,
-            slab_rows)
-        strips = jnp.pad(strips, ((0, 0), (0, WIN - 128))).reshape(nb, R, WIN)
-    else:
-        bands = jnp.stack(
-            [slab256[:, rr: rr + n, :gwb] for rr in range(R)], axis=1)
-        strip_E = _bands_energy(
-            bands.reshape(nb * R, n, gwb), n, edges, textures, energy_fn
-        ).astype(jnp.float32).reshape(nb, R, swb)
-        strips = jnp.pad(strip_E, ((0, 0), (0, 0), (0, WIN - swb)))
-
-    # scatter directly into the shard's energy buffer: the kernel's signed
-    # window starts mask out-of-shard lanes, so cross-boundary blocks write
-    # exactly their in-range overlap (no padded frame, no slice copy)
-    ts = (bs - lo).astype(jnp.int32)
-    return _scatter_strips_call(E_shift, strips.reshape(nb * R, WIN), ts,
-                                swb, R)
-
-
 # ------------------------------------------------------------- removal ------
 
 def _sharded_remove(local, seam, axis):
@@ -591,10 +451,8 @@ def _sharded_edge_fill(local_luma, width, axis):
 def _spatial_seam_step(st, label, blocksize: int, edges, textures, W: int,
                        Wl: int, K: int, strip_update: bool, with_image: bool,
                        axis, unroll: bool = False, delta_x: int = 1,
-                       rigidity: float = 0.0, use_pallas: bool = False,
-                       energy_fn=None, tie: str = "leftmost",
-                       dead_max: int | None = None,
-                       defer_record: bool = False):
+                       rigidity: float = 0.0, energy_fn=None,
+                       tie: str = "leftmost", defer_record: bool = False):
     """One full sharded seam: DP -> backtrack -> vmap record -> compaction ->
     energy update.  `st` is the 6-tuple of per-shard state; `label` is the
     1-based seam number written into the visibility map.  `unroll=True`
@@ -607,90 +465,32 @@ def _spatial_seam_step(st, label, blocksize: int, edges, textures, W: int,
     lo = idx * Wl
 
     ext_M = _sharded_dp(E_l, width, K, axis, unroll=unroll,
-                        delta_x=delta_x, rigidity=rigidity,
-                        use_pallas=use_pallas)
+                        delta_x=delta_x, rigidity=rigidity)
     seam = _sharded_backtrack(ext_M, width, K, axis, Wl, unroll=unroll,
                               delta_x=delta_x, rigidity=rigidity,
-                              use_pallas=use_pallas, tie=tie)  # (H,)
+                              tie=tie)  # (H,)
 
+    # removed pixel's ORIGINAL column — one-hot masked pass (the row-indexed
+    # gather lowers to a general form; identical values, see ops/carve.py)
     col_l = jnp.arange(Wl, dtype=jnp.int32)[None, :]
-    fused = use_pallas and apply_supported(H, Wl)
-    if not fused:
-        # removed pixel's ORIGINAL column — one-hot masked pass (the
-        # row-indexed gather lowers to a slow general form; identical
-        # values, see ops/carve.py).  The fused path gets this for free as
-        # an apply-kernel side output (the oc block is already in VMEM).
-        hit = col_l == (seam - lo)[:, None]  # matches only on owner shard
-        orig = jax.lax.psum(
-            jnp.sum(jnp.where(hit, origcol_l, 0), axis=1), axis
-        )                                # global original column (H,)
+    hit = col_l == (seam - lo)[:, None]  # matches only on owner shard
+    orig = jax.lax.psum(
+        jnp.sum(jnp.where(hit, origcol_l, 0), axis=1), axis
+    )                                    # global original column (H,)
 
     width = width - 1
-    if fused:
-        # fused apply: ONE packed ppermute ships all three boundary columns
-        # and the kernel compacts luma/origcol/energy in one pass per buffer
-        # (bitwise == _sharded_remove + _sharded_edge_fill)
-        incoming = _from_right(jnp.concatenate([
-            luma_l[:, :1], E_l[:, :1],
-            jax.lax.bitcast_convert_type(origcol_l[:, :1], jnp.float32),
-        ], axis=1), axis)                              # (H, 3)
-        # The luma edge-fill value is the POST-compaction value of the new
-        # last live column (post[width-1] == where(seam == width,
-        # pre[width-1], pre[width]) — exactly the reference edge value), and
-        # the dead region spans at most `dead_max` right-edge columns.  When
-        # that window fits one shard (the common case), both the extraction
-        # and the fill run on a static (H, D) slice of the LAST shard with
-        # NO collectives and no full-buffer pass; otherwise fall back to the
-        # psum broadcast of the two pre-compaction candidates.
-        D = None
-        if dead_max is not None:
-            D = -(-(dead_max + 2) // 128) * 128
-            if D > Wl:
-                D = None
-        if D is None:
-            cand = []
-            for c in (width, width - 1):
-                lic = c - lo
-                ow = (lic >= 0) & (lic < Wl)
-                cand.append(jnp.where(
-                    ow, jnp.take(luma_l, jnp.clip(lic, 0, Wl - 1), axis=1),
-                    0.0))
-            v1, v2 = jax.lax.psum(jnp.stack(cand, axis=1), axis).T
-            edge = jnp.where(seam == width, v2, v1)
-        else:
-            edge = jnp.zeros((H,), jnp.float32)
-        luma_l, origcol_l, E_shift, orig_p = sharded_apply_rows(
-            luma_l, origcol_l, E_l, seam, edge, incoming, width, lo)
-        orig = jax.lax.psum(orig_p[:, 0], axis)
-        if D is not None:
-            win = jax.lax.dynamic_slice(luma_l, (0, Wl - D), (H, D))
-            colw = lo + (Wl - D) + jnp.arange(D, dtype=jnp.int32)[None, :]
-            ev = jnp.sum(jnp.where(colw == width - 1, win, 0.0), axis=1)
-            win = jnp.where(colw >= width, ev[:, None], win)
-            luma_l = jax.lax.dynamic_update_slice(luma_l, win, (0, Wl - D))
-    else:
-        luma_l = _sharded_edge_fill(
-            _sharded_remove(luma_l, seam, axis), width, axis
-        )
-        origcol_l = _sharded_remove(origcol_l, seam, axis)
-        E_shift = None
+    luma_l = _sharded_edge_fill(_sharded_remove(luma_l, seam, axis), width,
+                                axis)
+    origcol_l = _sharded_remove(origcol_l, seam, axis)
     if with_image:
         img_l = _sharded_remove(img_l, seam, axis)
     if strip_update:
-        if E_shift is None:
-            E_shift = _sharded_remove(E_l, seam, axis)
+        E_shift = _sharded_remove(E_l, seam, axis)
         n_eff = energy_fn.n if energy_fn is not None else blocksize
-        R = _spatial_strip_rows(H, n_eff, delta_x, W)
-        if use_pallas and _spatial_strip_pallas_ok(H, Wl, n_eff, delta_x, R):
-            E_l = _sharded_strip_update_pallas(
-                luma_l, E_shift, seam, n_eff, edges, textures, W,
-                axis, R=R, delta_x=delta_x, energy_fn=energy_fn,
-            )
-        else:
-            E_l = _sharded_strip_update(
-                luma_l, E_shift, seam, n_eff, edges, textures, W,
-                axis, R=R, delta_x=delta_x, energy_fn=energy_fn,
-            )
+        E_l = _sharded_strip_update(
+            luma_l, E_shift, seam, n_eff, edges, textures, W, axis,
+            delta_x=delta_x, energy_fn=energy_fn,
+        )
     else:
         E_l = _sharded_energy(luma_l, blocksize, edges, textures, W, axis,
                               energy_fn)
@@ -713,7 +513,6 @@ def measure_collectives_per_seam(
     strip_update: bool = True,
     delta_x: int = 1,
     rigidity: float = 0.0,
-    use_pallas: bool = False,
 ):
     """MEASURED collective count per carved seam: compile one unrolled seam
     step through the real shard_map lowering and count the collective ops in
@@ -738,15 +537,13 @@ def measure_collectives_per_seam(
         out, _ = _spatial_seam_step(st, jnp.int32(1), blocksize, edges,
                                     textures, W, Wl, K, strip_update, False,
                                     axis, unroll=True, delta_x=delta_x,
-                                    rigidity=rigidity, use_pallas=use_pallas,
-                                    dead_max=64)
+                                    rigidity=rigidity)
         return out[0], out[2], out[3], out[4], out[5][None]
 
     f = jax.jit(shard_map(
         shard_fn, mesh=mesh,
         in_specs=(spec, spec, spec, spec, P(axis)),
         out_specs=(spec, spec, spec, spec, P(axis)),
-        check_vma=False,
     ))
     f32 = jax.ShapeDtypeStruct((H, W), jnp.float32)
     i32 = jax.ShapeDtypeStruct((H, W), jnp.int32)
@@ -758,11 +555,10 @@ def measure_collectives_per_seam(
     by_op = {
         op: len(re.findall(rf"\b{op}(?:-start)?\(", txt)) for op in ops
     }
-    fused = use_pallas and apply_supported(H, W // nsh)
     return {
         "total": sum(by_op.values()),
         "by_op": {k: v for k, v in by_op.items() if v},
-        "designed": collectives_per_seam(H, K, fused_apply=fused),
+        "designed": collectives_per_seam(H, K),
     }
 
 
@@ -866,7 +662,6 @@ def spatial_enlarge_n_seams(
     strip_update: bool = True,
     delta_x: int = 1,
     rigidity: float = 0.0,
-    use_pallas: bool | None = None,
     energy=None,
     progress=None,
     tie: str = "leftmost",
@@ -891,7 +686,7 @@ def spatial_enlarge_n_seams(
         luma, n_seams, blocksize=blocksize, edges=edges, textures=textures,
         mesh=mesh, axis=axis, frontier_block=frontier_block,
         strip_update=strip_update, delta_x=delta_x, rigidity=rigidity,
-        use_pallas=use_pallas, energy=energy, progress=progress, tie=tie,
+        energy=energy, progress=progress, tie=tie,
         chunk=chunk, checkpoint_dir=checkpoint_dir, resume_from=resume_from,
     )
     image = jnp.asarray(image)
@@ -910,7 +705,6 @@ def spatial_enlarge_n_seams(
     out = jax.jit(shard_map(
         lambda im, vm: _sharded_enlarge(im, vm, n_seams, W, Wlo, axis),
         mesh=mesh, in_specs=(ispec, P(None, axis)), out_specs=ispec,
-        check_vma=False,
     ), static_argnames=())(image, vmap)
     return SpatialCarveResult(res.vmap, jnp.asarray(W + n_seams, jnp.int32),
                               out[:, : W + n_seams])
@@ -964,13 +758,12 @@ def _spatial_init_jit(luma, image, blocksize, edges, textures, mesh, axis,
 @functools.partial(
     jax.jit, static_argnames=("count", "blocksize", "mesh", "axis",
                               "frontier_block", "strip_update", "with_image",
-                              "delta_x", "rigidity", "use_pallas",
-                              "energy_fn", "tie", "dead_max")
+                              "delta_x", "rigidity", "energy_fn", "tie")
 )
 def _spatial_chunk_jit(state, seam_base, count, blocksize, edges, textures,
                        mesh, axis, frontier_block, strip_update, with_image,
-                       delta_x=1, rigidity=0.0, use_pallas=False,
-                       energy_fn=None, tie="leftmost", dead_max=None):
+                       delta_x=1, rigidity=0.0, energy_fn=None,
+                       tie="leftmost"):
     """Carve `count` seams starting at 1-based label seam_base+1."""
     H, W = state.luma.shape
     nsh = mesh.shape[axis]
@@ -985,8 +778,7 @@ def _spatial_chunk_jit(state, seam_base, count, blocksize, edges, textures,
             st, orig = _spatial_seam_step(
                 st, base + i + 1, blocksize, edges, textures, W, Wl, K,
                 strip_update, with_image, axis, delta_x=delta_x,
-                rigidity=rigidity, use_pallas=use_pallas,
-                energy_fn=energy_fn, tie=tie, dead_max=dead_max,
+                rigidity=rigidity, energy_fn=energy_fn, tie=tie,
                 defer_record=True,
             )
             return st, jax.lax.dynamic_update_index_in_dim(recs, orig, i, 0)
@@ -1013,15 +805,11 @@ def _spatial_chunk_jit(state, seam_base, count, blocksize, edges, textures,
     spec = P(None, axis)
     img_spec = (P(None, axis, None)
                 if (with_image and state.image.ndim == 3) else spec)
-    # check_vma=False: the Pallas window kernels inside (strip gather /
-    # scatter) contain floor-div sign conds whose sub-jaxprs acquire pvary
-    # ops under vma tracing, which the Mosaic lowering rejects
     shard = shard_map(
         shard_fn,
         mesh=mesh,
         in_specs=(spec, img_spec, spec, spec, spec, P(axis), P(axis)),
         out_specs=(spec, img_spec, spec, spec, spec, P(axis)),
-        check_vma=False,
     )
     rep = lambda x: jnp.broadcast_to(jnp.asarray(x, jnp.int32), (nsh,))
     luma, img, origcol, vmap, energy, widths = shard(
@@ -1096,7 +884,6 @@ def spatial_carve_n_seams(
     resume_from: str | None = None,
     delta_x: int = 1,
     rigidity: float = 0.0,
-    use_pallas: bool | None = None,
     energy=None,
     progress=None,
     tie: str = "leftmost",
@@ -1131,10 +918,6 @@ def spatial_carve_n_seams(
         mesh = make_mesh(axis_name=axis)
     if delta_x < 1:
         raise ValueError(f"delta_x must be >= 1, got {delta_x}")
-    if use_pallas is None:
-        # auto: per-shard block kernels on a real TPU (interpret mode on
-        # CPU is bitwise-correct but slower than the scan; tests opt in)
-        use_pallas = jax.default_backend() == "tpu"
     from ..ops.dp import check_tie
 
     check_tie(tie)
@@ -1193,18 +976,13 @@ def spatial_carve_n_seams(
         progress.init(_t("Resizing width..."))
         if done:
             progress.update(done / n_seams)
-    # static bound on the dead-region width over the WHOLE carve (initial
-    # divisibility padding + every seam) — lets the fused apply run its
-    # collective-free right-edge fill (see _spatial_seam_step)
-    dead_max = (state.luma.shape[1] - W) + n_seams
     step = chunk if chunk > 0 else n_seams
     while done < n_seams:
         count = min(step, n_seams - done)
         state = _spatial_chunk_jit(
             state, jnp.int32(done), count, blocksize, edges, textures,
             mesh, axis, frontier_block, strip_update, with_image,
-            delta_x, rigidity, bool(use_pallas), energy_fn, tie,
-            dead_max,
+            delta_x, rigidity, energy_fn, tie,
         )
         state = jax.block_until_ready(state)
         done += count

@@ -12,7 +12,7 @@ The reference has two dialogs (SURVEY §2.2/2.3):
   once (`interface.c:131-135`), then a width slider re-resizes in real time
   by replaying seams (`callback_resize_slider`, `interface.c:647-670`).
 
-TPU-native equivalent: a single-page web app served by a stdlib HTTP server
+Equivalent here: a single-page web app served by a stdlib HTTP server
 (no GTK, no extra deps).  The browser is the widget toolkit; every heavy
 operation is one jitted device program behind an endpoint:
 

@@ -4,7 +4,7 @@ The reference persists only its 9 settings across invocations
 (`gimp_set_data`, src/main.c:166-167,219-220).  Here the whole mid-carve state
 (current luma + origcol + vmap + width + energy) is a pytree; a long carve can
 be split into chunks of seams with a durable snapshot between chunks —
-checkpoint-restart for the seam loop on preemptible TPU jobs.
+checkpoint-restart for the seam loop on preemptible jobs.
 
 Two formats:
   * single-device: one .npz (portable; arrays this small need no orbax);
@@ -239,7 +239,6 @@ def carve_resumable(
     """
     from ..ops.carve import (  # noqa: PLC0415
         make_state, _one_seam, full_energy_map, min_strip_width,
-        resolve_use_pallas,
     )
     import jax
 
@@ -266,16 +265,12 @@ def carve_resumable(
     strip = config.strip_update and (
         state.luma.shape[1] >= min_strip_width(n_eff, config.delta_x)
     )
-    use_pallas = resolve_use_pallas(
-        None if config.use_pallas else False, *state.luma.shape
-    ) and config.delta_x == 1 and config.rigidity == 0.0
-
     @jax.jit
     def run_chunk(state, start, count):
         def body(i, s):
             return _one_seam(
                 s, (start + i + 1).astype(jnp.int32), config.blocksize,
-                config.edges, config.textures, strip, use_pallas,
+                config.edges, config.textures, strip,
                 config.delta_x, config.rigidity, energy_fn,
                 getattr(config, "tie", "leftmost"),
             )

@@ -6,7 +6,7 @@ Reference: `src/main.h:12-22` (PlugInVals), defaults `src/main.c:30-40`:
 
 `new_layer`/`resize_canvas` are GIMP-layer concerns with no analog here
 (documented n/a per SURVEY §5); the remaining knobs keep their exact meaning.
-TPU-specific execution knobs live in separate fields and do not affect results.
+Execution knobs live in separate fields and do not affect results.
 """
 
 from __future__ import annotations
@@ -37,7 +37,7 @@ class CarverConfig:
     rigidity: float = 0.0       # step penalty: rigidity * |dx| / delta_x
     # DP tie rule (the S1/S2 spec knob, docs/PARITY.md): the real convention
     # lives inside external liblqr; either can be matched with this flag,
-    # applied identically in oracle / native C++ / scan / Pallas / spatial.
+    # applied identically in oracle / native C++ / scan / GPU kernel / spatial.
     tie: str = "leftmost"       # "leftmost" | "rightmost"
 
     # --- lqr_carver_set_energy_function analog (src/render.c:314-315) ---
@@ -48,7 +48,6 @@ class CarverConfig:
 
     # --- framework knobs (no effect on carve results) ---
     luma: str = "bt709"         # "bt709" (carve path) | "bt601_studio" (preview)
-    use_pallas: bool = True     # fused TPU kernels where available
     strip_update: bool = True   # incremental energy updates between seams
     row_block: int | None = None  # bound energy-map peak memory
     # execution routing: "none" = single device; "spatial" = column-shard

@@ -1,15 +1,21 @@
 """ctypes bindings for the native C++ reference carver (native/carver.cc).
 
 The library is compiled on demand with g++ (no pybind11 dependency — plain
-`extern "C"` + ctypes, as the environment prescribes).  The native carver is
-the framework's CPU-side second oracle and the BASELINE config-1
-"single-core CPU reference run".
+`extern "C"` + ctypes).  The native carver is the framework's CPU-side second
+oracle and the BASELINE config-1 "single-core CPU reference run".
+
+The build is `-march=native`, so the library's file name carries a hash of
+the source, the machine type and the host CPU's feature flags: a checkout
+copied to another host builds its own library instead of loading one made
+for a different CPU.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
+import platform
 import subprocess
 import threading
 
@@ -25,7 +31,30 @@ _REPO_ROOT = os.path.dirname(
 )
 _SRC = os.path.join(_REPO_ROOT, "native", "carver.cc")
 _BUILD_DIR = os.path.join(_REPO_ROOT, "native", "build")
-_SO = os.path.join(_BUILD_DIR, "libdctcarver.so")
+_FLAGS = ["-O3", "-march=native", "-ffp-contract=off", "-shared", "-fPIC"]
+
+
+def _cpu_flags() -> str:
+    """The host CPU's feature flags (Linux), or "" where unreadable."""
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if line.startswith(("flags", "Features")):
+                    return line.split(":", 1)[1].strip()
+    except OSError:
+        pass
+    return ""
+
+
+def library_path() -> str:
+    """Where the library for THIS host lives: keyed on the source, the
+    compiler flags, the machine type and the CPU's feature flags."""
+    h = hashlib.sha256()
+    with open(_SRC, "rb") as f:
+        h.update(f.read())
+    for part in (" ".join(_FLAGS), platform.machine(), _cpu_flags()):
+        h.update(b"\0" + part.encode())
+    return os.path.join(_BUILD_DIR, f"libdctcarver-{h.hexdigest()[:16]}.so")
 
 
 def _load():
@@ -33,20 +62,19 @@ def _load():
     with _LOCK:
         if _LIB is not None:
             return _LIB
-        if not os.path.exists(_SO) or (
-            os.path.exists(_SRC)
-            and os.path.getmtime(_SRC) > os.path.getmtime(_SO)
-        ):
+        so = library_path()
+        if not os.path.exists(so):
             os.makedirs(_BUILD_DIR, exist_ok=True)
             # -ffp-contract=off: the f32-chain mode must not fuse the
             # mul-add chains into FMAs, or its values diverge from the
-            # exactly-rounded XLA/Pallas chains it is compared against
-            subprocess.run(
-                ["g++", "-O3", "-march=native", "-ffp-contract=off",
-                 "-shared", "-fPIC", "-o", _SO, _SRC],
-                check=True, capture_output=True,
-            )
-        lib = ctypes.CDLL(_SO)
+            # exactly-rounded XLA chains it is compared against.  Build to
+            # a private name and rename, so that another process never
+            # loads a half-written file.
+            tmp = f"{so}.{os.getpid()}.tmp"
+            subprocess.run(["g++", *_FLAGS, "-o", tmp, _SRC],
+                           check=True, capture_output=True)
+            os.replace(tmp, so)
+        lib = ctypes.CDLL(so)
         lib.dc_energy_map.argtypes = [
             ctypes.POINTER(ctypes.c_double), ctypes.c_int, ctypes.c_int,
             ctypes.c_int, ctypes.c_float, ctypes.c_float,

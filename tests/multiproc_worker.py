@@ -2,8 +2,8 @@
 
 Each worker is an independent Python process with its own 4-device CPU
 backend; `jax.distributed.initialize` joins them into one 2-process /
-8-device multi-controller job — the same execution model as a 2-host TPU
-pod, minus the ICI.  This is what turns parallel.multihost and
+8-device multi-controller job — the same execution model as two hosts of
+accelerators, minus their interconnect.  This is what turns parallel.multihost and
 utils.checkpoint.save_sharded's "each host writes only its own shards"
 claims into executed code (SURVEY §4 "multi-host without a cluster").
 

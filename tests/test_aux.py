@@ -115,3 +115,35 @@ def test_metrics_json_shape(rng):
     s = m.summary()
     json.dumps(s)  # serializable
     assert "stages_s" in s
+
+
+def test_profiling_maps_kernels_to_the_seam_dp_scope():
+    """The trace reduction attributes a kernel to a name scope through the
+    op_name metadata of the compiled HLO; the carve's DP ops carry
+    "seam_dp" and the other stages do not."""
+    import jax
+
+    from dct_carver_tpu.ops.carve import carve_n_seams
+    from dct_carver_tpu.utils.profiling import _kernel_op_names, _key
+
+    hlo = carve_n_seams.lower(jax.ShapeDtypeStruct((16, 64), jnp.float32),
+                              2, 8, 0.0, 1.0).compile().as_text()
+    names = _kernel_op_names(hlo)
+    in_dp = {k for k, v in names.items() if "seam_dp" in v}
+    assert in_dp and len(in_dp) < len(names)
+    assert all(_key(k) == k for k in names)  # kernel-name normal form
+    assert _key("loop_add_fusion.1") == "loop_add_fusion_1"
+
+
+@pytest.mark.parametrize("spans,busy", [
+    ([], 0),
+    ([(0, 10)], 10),
+    ([(0, 10), (20, 25)], 15),                # a gap is idle
+    ([(0, 10), (5, 12)], 12),                 # overlap counted once
+    ([(5, 12), (0, 10), (1, 3)], 12),         # unsorted, nested
+    ([(0, 10), (10, 20)], 20),                # touching
+])
+def test_busy_ns_is_the_union_of_kernel_intervals(spans, busy):
+    from dct_carver_tpu.utils.profiling import busy_ns
+
+    assert busy_ns(spans) == busy

@@ -87,8 +87,8 @@ def test_energy_row_block_equivalence(make_image):
     full = dct_energy_map(luma, 8, 0.2, 0.8)
     blocked = dct_energy_map(luma, 8, 0.2, 0.8, row_block=8)
     # CPU LLVM contracts mul+add chains to FMA differently across fusion
-    # contexts (lax.map body vs eager) — tight allclose there; on TPU the
-    # chains are bit-identical (verified on hardware, see pallas/energy_kernel)
+    # contexts (lax.map body vs eager) — tight allclose there; XLA:GPU does
+    # not contract them (docs/PARITY.md, tests/test_chip.py)
     np.testing.assert_allclose(
         np.asarray(full), np.asarray(blocked), rtol=5e-5, atol=1e-7
     )

@@ -1,4 +1,4 @@
-"""Pluggable energy functions (ops/energy_fn.py) — the TPU-native analog of
+"""Pluggable energy functions (ops/energy_fn.py) — the vectorized analog of
 liblqr's lqr_carver_set_energy_function / lqr_rwindow_read surface
 (/root/reference/src/render.c:314-315, :144-151).
 

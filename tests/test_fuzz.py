@@ -2,7 +2,7 @@
 
 The targeted tests pin specific shapes/knobs; this module walks a seeded
 random grid over (shape, blocksize, weights, seams, image kind,
-delta_x/rigidity, strip on/off, pallas on/off) and asserts full-carve
+delta_x/rigidity, strip on/off, DP kernel (interpreter) on/off) and asserts full-carve
 visibility-map parity with `oracle.carve_seams` every time.  Seeded, so
 failures reproduce; small shapes keep the sweep under a minute.
 """
@@ -45,18 +45,18 @@ def test_random_config_carve_parity(trial):
     n = int(rng.integers(1, min(8, w - 2)))
     kind = ["noise", "smooth", "quantized", "structured"][trial % 4]
     strip = bool(trial % 2)
-    use_pallas = trial % 3 == 0  # interpret-mode kernels on CPU
+    kernel = trial % 3 == 0  # the seam-DP kernel through the interpreter
 
     img = _image(rng, h, w, kind)
     luma = np.asarray(oracle.luma_bt709(img), np.float32)
 
     _, ref_vmap, _ = oracle.carve_seams(img, n, blocksize, edges, textures)
     got = carve_n_seams(jnp.asarray(luma), n, blocksize, edges, textures,
-                        strip_update=strip, use_pallas=use_pallas)
+                        strip_update=strip, interpret=kernel)
     np.testing.assert_array_equal(
         np.asarray(got.vmap), ref_vmap,
         err_msg=f"trial={trial} h={h} w={w} n={n} bs={blocksize} "
-                f"s={slider} kind={kind} strip={strip} pallas={use_pallas}",
+                f"s={slider} kind={kind} strip={strip} kernel={kernel}",
     )
 
 
@@ -101,8 +101,8 @@ def _tie_corpus(rng, h, w, kind):
 @pytest.mark.parametrize("tie", ["leftmost", "rightmost"])
 @pytest.mark.parametrize("kind", ["constant", "stripes", "two_blobs"])
 def test_forced_tie_all_paths_agree(tie, kind):
-    """Under forced exact ties, every path — oracle, scan, Pallas
-    (interpret), native C++ f32-chain — must pick the SAME seams at BOTH tie
+    """Under forced exact ties, every path — oracle, scan, the seam-DP
+    kernel (interpreter), native C++ f32-chain — must pick the SAME seams at BOTH tie
     settings: the S1/S2 spec choice is a covered parameter, not a fixed
     guess."""
     from dct_carver_tpu.utils.native import native_available, carve_native_f32
@@ -113,14 +113,13 @@ def test_forced_tie_all_paths_agree(tie, kind):
     luma = np.asarray(oracle.luma_bt709(img), np.float32)
 
     _, ref_vmap, _ = oracle.carve_seams(img, n, 8, 0.3, 0.7, tie=tie)
-    scan = carve_n_seams(jnp.asarray(luma), n, 8, 0.3, 0.7,
-                         use_pallas=False, tie=tie)
+    scan = carve_n_seams(jnp.asarray(luma), n, 8, 0.3, 0.7, tie=tie)
     np.testing.assert_array_equal(np.asarray(scan.vmap), ref_vmap,
                                   err_msg=f"scan {tie} {kind}")
-    pal = carve_n_seams(jnp.asarray(luma), n, 8, 0.3, 0.7,
-                        use_pallas=True, tie=tie)
-    np.testing.assert_array_equal(np.asarray(pal.vmap), ref_vmap,
-                                  err_msg=f"pallas {tie} {kind}")
+    kern = carve_n_seams(jnp.asarray(luma), n, 8, 0.3, 0.7,
+                         interpret=True, tie=tie)
+    np.testing.assert_array_equal(np.asarray(kern.vmap), ref_vmap,
+                                  err_msg=f"kernel {tie} {kind}")
     if native_available():
         nat = carve_native_f32(luma, n, 8, 0.3, 0.7, tie=tie)
         np.testing.assert_array_equal(nat, ref_vmap,
@@ -143,8 +142,7 @@ def test_forced_tie_spatial_agrees(tie):
         img = _tie_corpus(rng, 16, 64, kind)
         luma = np.asarray(oracle.luma_bt709(img), np.float32)
         n = 3
-        single = carve_n_seams(jnp.asarray(luma), n, 8, 0.3, 0.7,
-                               use_pallas=False, tie=tie)
+        single = carve_n_seams(jnp.asarray(luma), n, 8, 0.3, 0.7, tie=tie)
         sharded = spatial_carve_n_seams(luma, n, mesh=mesh, edges=0.3,
                                         textures=0.7, tie=tie)
         np.testing.assert_array_equal(

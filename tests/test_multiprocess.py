@@ -4,9 +4,10 @@ spatial carve, the orbax per-host checkpoint, and the liveness probe.
 Everything else in the suite runs one process over a virtual 8-device mesh;
 these tests spawn two OS processes with their own 4-device CPU backends and
 join them with `jax.distributed.initialize` through a local coordinator —
-the multi-controller execution model of a 2-host TPU pod (SURVEY §4
-"multi-host without a cluster").  BASELINE's 2-host axis has no TPU pod in
-this environment; this is the strongest available substitute.
+the multi-controller execution model of two accelerator hosts (SURVEY §4
+"multi-host without a cluster").  BASELINE's 2-host axis needs a second
+host, which the test environment lacks; this is the strongest available
+substitute.
 """
 
 import os
@@ -99,8 +100,8 @@ def test_two_process_scaling_overhead(tmp_path):
     (1 process x 8 devices) vs multi-controller (2 processes x 4 devices,
     collectives through a real cross-process backend — Gloo over local
     TCP).  This MEASURES the per-collective cost of the cross-process
-    fabric (recorded; docs/SCALING.md turns it into the ICI pod model).
-    The TCP fabric is ~100x slower per collective than ICI, so no tight
+    fabric.  The TCP fabric is far slower per collective than a device
+    interconnect such as NVLink, so no tight
     efficiency bound applies here — the assertions are that the
     multi-controller run works and that the overhead is explained by the
     collective count (cost/collective in a plausible TCP range)."""

@@ -97,19 +97,49 @@ def test_native_f32_parity(kind, n):
     seams = 12
     vm_native = carve_native_f32(luma, seams, n, 0.3, 0.7)
     state = carve_n_seams(jnp.asarray(luma), seams, n, 0.3, 0.7,
-                          strip_update=True, use_pallas=False)
+                          strip_update=True)
     np.testing.assert_array_equal(np.asarray(state.vmap), vm_native)
 
 
 def test_native_f32_parity_pallas_interpret():
-    """Same parity through the Pallas kernel path (interpret mode on CPU);
-    pallas==scan is separately asserted bitwise in test_pallas.py — this
-    closes the triangle native == scan == pallas on the shipping dtype."""
+    """Same parity through the seam-DP kernel (Pallas interpreter on the
+    CPU); kernel == scan is separately asserted bitwise in
+    test_seam_dp.py — this closes the triangle native == scan == kernel on
+    the shipping dtype."""
     from dct_carver_tpu.ops.carve import carve_n_seams
 
     luma = _structured_luma("photo", 48, 128)
     seams = 6
     vm_native = carve_native_f32(luma, seams, 8, 0.3, 0.7)
     state = carve_n_seams(jnp.asarray(luma), seams, 8, 0.3, 0.7,
-                          strip_update=True, use_pallas=True)
+                          strip_update=True, interpret=True)
     np.testing.assert_array_equal(np.asarray(state.vmap), vm_native)
+
+
+def test_library_is_keyed_on_the_host(monkeypatch):
+    """A checkout copied to another host builds its own library: the file
+    name changes with the CPU's feature flags and the machine type."""
+    import platform as host
+
+    from dct_carver_tpu.utils import native
+
+    here = native.library_path()
+    assert here == native.library_path()  # stable on one host
+    monkeypatch.setattr(native, "_cpu_flags", lambda: "sse2 other-cpu")
+    other_cpu = native.library_path()
+    monkeypatch.setattr(host, "machine", lambda: "aarch64")
+    other_machine = native.library_path()
+    assert len({here, other_cpu, other_machine}) == 3
+    assert all(p.startswith(native._BUILD_DIR) for p in
+               (here, other_cpu, other_machine))
+
+
+def test_library_is_keyed_on_the_source(monkeypatch, tmp_path):
+    from dct_carver_tpu.utils import native
+
+    src = tmp_path / "carver.cc"
+    src.write_bytes(open(native._SRC, "rb").read())
+    monkeypatch.setattr(native, "_SRC", str(src))
+    before = native.library_path()
+    src.write_bytes(src.read_bytes() + b"\n// edited\n")
+    assert native.library_path() != before

@@ -315,18 +315,16 @@ def test_sharded_checkpoint_atomic_progress(mesh8, tmp_path):
                                   np.asarray(state.luma))
 
 
-@pytest.mark.parametrize("hwkp", [(32, 512, 8, False), (48, 1024, 16, False),
-                                  (32, 2048, 8, True)])
-def test_measured_collectives_match_design(mesh8, hwkp):
+@pytest.mark.parametrize("hwk", [(32, 512, 8), (48, 1024, 16),
+                                 (32, 2048, 8)])
+def test_measured_collectives_match_design(mesh8, hwk):
     """The collective count in the COMPILED HLO of one seam step must match
     the designed budget — catches any collectives a shard_map lowering or
-    the partitioner quietly inserts (or merges).  The use_pallas case
-    validates the fused-apply budget (1 packed ppermute instead of 3)."""
+    the partitioner quietly inserts (or merges)."""
     from dct_carver_tpu.parallel.spatial import measure_collectives_per_seam
 
-    H, W, K, up = hwkp
-    m = measure_collectives_per_seam(H, W, mesh8, frontier_block=K,
-                                     use_pallas=up)
+    H, W, K = hwk
+    m = measure_collectives_per_seam(H, W, mesh8, frontier_block=K)
     assert m["total"] == m["designed"], m
     # the design uses only ppermute + psum/pmin: no all-gathers or
     # all-to-alls may appear
@@ -334,31 +332,21 @@ def test_measured_collectives_match_design(mesh8, hwkp):
 
 
 @pytest.mark.parametrize("wk", [(64, 32), (256, 24), (2048, 32)])
-def test_spatial_pallas_kernels_bitwise(mesh8, wk):
-    """The per-shard Pallas kernel paths (block DP, segment walk, fused
-    apply, windowed strip — engaged progressively by shape) must give
-    bitwise-identical seams to the scan/XLA forms — roll/min/select ops
-    only, so this holds on every backend.
-    (W=256, K=24 makes We = W/8 + 4K = 128, engaging the block-DP kernel;
-    W=2048 additionally engages the fused apply (Wl=256 lane-aligned) and
-    the Pallas windowed strip; W=64 engages only the segment walk.)"""
-    from dct_carver_tpu.pallas.spatial_dp_kernel import (
-        block_dp_supported, apply_supported)
-    from dct_carver_tpu.parallel.spatial import _spatial_strip_pallas_ok
-
+def test_spatial_plain_forms_bitwise(mesh8, wk):
+    """The per-shard plain forms (block DP scan, segment walk, sharded
+    compaction, sharded strip update) must give the seams of the
+    single-device strip-updated carve: with 8-column shards under a
+    64-column frontier halo (W=64, multi-hop relays), a K=24 block over
+    32-column shards (W=256) and 256-column shards (W=2048)."""
     w, K = wk
-    if w >= 256:
-        assert block_dp_supported(w // 8 + 4 * K)
-    if w == 2048:
-        assert apply_supported(48, w // 8)
-        assert _spatial_strip_pallas_ok(48, w // 8, 8, 1)
     luma_np, _ = _luma(48, w, seed=29)
     n = 4
-    scan = spatial_carve_n_seams(luma_np, n, mesh=mesh8, use_pallas=False,
-                                 frontier_block=K)
-    pal = spatial_carve_n_seams(luma_np, n, mesh=mesh8, use_pallas=True,
-                                frontier_block=K)
-    np.testing.assert_array_equal(np.asarray(pal.vmap), np.asarray(scan.vmap))
+    single = carve_ops.carve_n_seams(jnp.asarray(luma_np), n, 8, 0.0, 1.0,
+                                     strip_update=True)
+    res = spatial_carve_n_seams(luma_np, n, mesh=mesh8, frontier_block=K)
+    np.testing.assert_array_equal(np.asarray(res.vmap),
+                                  np.asarray(single.vmap))
+    assert int(res.width) == w - n
 
 
 @pytest.mark.parametrize("w,rgb", [(64, True), (61, False)])
